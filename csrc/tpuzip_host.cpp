@@ -1,10 +1,11 @@
 // tpuzip host runtime — native C++ implementations of the host-side paths:
-// container framing, checksums, and CPU codec baselines (LZ4 block, RLE,
-// carryless range coder).  These mirror tpuzip.oracle formats bit-exactly
-// and exist so host assembly/IO runs at memcpy speed and so bench.py has an
-// honest single-thread CPU baseline for codecs with no system library.
+// container framing, checksums, and the threaded host stage of every codec
+// (LZ4 block, RLE, DEFLATE, BWT, MTF, DC, the ari and bin/apm coders).
+// These mirror tpuzip.oracle formats bit-exactly; the backend table
+// (tpuzip/dist/backend.py) says which stages they serve on each platform.
 //
-// Build: make -C csrc   (produces libtpuzip_host.so; loaded via ctypes)
+// Build: make -C csrc   (produces libtpz_host.so; loaded via ctypes;
+// tpuzip.runtime.native runs it at first use)
 
 #include <algorithm>
 #include <atomic>
@@ -12,6 +13,8 @@
 #include <cstring>
 #include <thread>
 #include <vector>
+
+#include "ari_model.h"
 
 namespace {
 
@@ -831,8 +834,8 @@ int64_t tpz_lz4_decode_wplan(const uint8_t* src, int64_t n, int32_t* wplan,
 }
 
 // LZ4 decode DWORD plan: one i32 address per output DOUBLE word (8 bytes),
-// halving the device gather ROW count vs tpz_lz4_decode_wplan (the v5e
-// gather unit is row-count bound).  The device fetches three adjacent u32
+// halving the device gather ROW count vs tpz_lz4_decode_wplan.  The device
+// fetches three adjacent u32
 // table words covering bytes addr..addr+11 and funnel-shifts two output
 // words.  Same patch/status contract as tpz_lz4_decode_wplan.
 int64_t tpz_lz4_decode_wplan8(const uint8_t* src, int64_t n, int32_t* wplan,
@@ -856,7 +859,7 @@ int64_t tpz_lz4_decode_wplan16(const uint8_t* src, int64_t n,
 // Threaded full LZ4 host decode (production path when the output lands on
 // the host anyway — same migration rule as rle/deflate/bwt-inverse; the
 // device copy plans remain the decode-into-device-memory serving path and
-// the TPU formulation cross-check).
+// the device formulation's cross-check).
 void tpz_lz4_decompress_batch(const uint8_t* src, int64_t b, int64_t scap,
                               const int32_t* slens, uint8_t* dst,
                               int64_t dcap, int64_t* out_lens,
@@ -901,7 +904,7 @@ void tpz_lz4_decode_wplan8_batch(const uint8_t* src, int64_t b,
 
 // ---------------------------------------------------------------- inflate
 // RFC 1951 inflate (production host path for the deflate/zlib containers;
-// the device symbol-loop formulation in codecs/deflate.py is the TPU
+// the device symbol-loop formulation in codecs/deflate.py is the device
 // reference and cross-checks this).  Canonical Huffman decode, puff-style
 // count/offset tables.
 namespace {
@@ -1211,7 +1214,7 @@ int64_t tpz_inflate_plan(const uint8_t* src, int64_t n, int32_t* plan,
 
 // ---------------------------------------------------------------- deflate
 // RFC 1951 encoder (production host path; the device bulk stages in
-// codecs/deflate.py are the TPU formulation).  Greedy hash-chain LZ77 +
+// codecs/deflate.py are the device formulation).  Greedy hash-chain LZ77 +
 // package-merge length-limited dynamic Huffman, one final block.
 namespace {
 
@@ -1874,175 +1877,42 @@ int64_t tpz_rle_decode(const uint8_t* src, int64_t n, uint8_t* dst,
 }
 
 // ------------------------------------------------- carryless range coder
-// Same coder + order-0 table model as tpuzip.oracle.ari (bit-exact).
-struct AriModel {
-  // two-level cumulative structure: gsum[g] = sum of freq[16g..16g+15].
-  // cum_lo / symbol search touch <= 32 cells instead of a 256-wide scan
-  // (3-4x on the encode/decode hot loops); format-identical to the
-  // flat-table oracle model.
-  uint32_t freq[256];
-  uint32_t gsum[16];
-  uint32_t total;
-  uint32_t inc, thresh;
-  void init(uint32_t increment, uint32_t threshold) {
-    for (int s = 0; s < 256; ++s) freq[s] = 1;
-    for (int g = 0; g < 16; ++g) gsum[g] = 16;
-    total = 256;
-    inc = increment;
-    thresh = threshold;
-  }
-  uint32_t cum_lo(int sym) const {
-    uint32_t acc = 0;
-    for (int g = 0; g < (sym >> 4); ++g) acc += gsum[g];
-    for (int s = sym & ~15; s < sym; ++s) acc += freq[s];
-    return acc;
-  }
-  // largest sym with cum_lo(sym) <= v; returns cum_lo via *lo
-  int find(uint32_t v, uint32_t* lo) const {
-    uint32_t acc = 0;
-    int g = 0;
-    while (g < 15 && acc + gsum[g] <= v) acc += gsum[g++];
-    int s = g << 4;
-    while (acc + freq[s] <= v) acc += freq[s++];
-    *lo = acc;
-    return s;
-  }
-  void update(int sym) {
-    freq[sym] += inc;
-    gsum[sym >> 4] += inc;
-    total += inc;
-    if (total >= thresh) {
-      total = 0;
-      for (int g = 0; g < 16; ++g) {
-        uint32_t gs = 0;
-        for (int s = g << 4; s < ((g + 1) << 4); ++s) {
-          freq[s] = (freq[s] + 1) >> 1;
-          gs += freq[s];
-        }
-        gsum[g] = gs;
-        total += gs;
-      }
-    }
-  }
-};
-
-static const uint32_t A_TOP = 1u << 24, A_BOT = 1u << 16;
+// Same coder + order-0 table model as tpuzip.oracle.ari (bit-exact); the
+// per-stream loops live in ari_model.h, shared with the CUDA coder.
+static const uint32_t A_TOP = tpz::ARI_TOP, A_BOT = tpz::ARI_BOT;
 
 int64_t tpz_ari_encode(const uint8_t* src, int64_t n, uint8_t* dst,
                        int64_t cap, uint32_t increment, uint32_t threshold) {
-  AriModel m;
+  tpz::AriModel m;
   m.init(increment, threshold);
-  uint32_t low = 0, range = 0xFFFFFFFFu;
-  int64_t o = 0;
-  for (int64_t i = 0; i < n; ++i) {
-    int sym = src[i];
-    uint32_t cumlo = m.cum_lo(sym);
-    uint32_t r = range / m.total;
-    low += r * cumlo;
-    range = r * m.freq[sym];
-    for (;;) {
-      if (((low ^ (low + range)) < A_TOP)) {
-      } else if (range < A_BOT) {
-        range = (uint32_t)(-(int64_t)low) & (A_BOT - 1);
-      } else {
-        break;
-      }
-      if (o >= cap) return -1;
-      dst[o++] = (uint8_t)(low >> 24);
-      low <<= 8;
-      range <<= 8;
-    }
-    m.update(sym);
-  }
-  for (int k = 0; k < 4; ++k) {
-    if (o >= cap) return -1;
-    dst[o++] = (uint8_t)(low >> 24);
-    low <<= 8;
-  }
-  return o;
+  return tpz::ari_encode_indexed(m, src, n, dst, cap, nullptr, 0);
 }
 
 int64_t tpz_ari_decode(const uint8_t* src, int64_t n, uint8_t* dst,
                        int64_t num_syms, uint32_t increment,
                        uint32_t threshold) {
-  AriModel m;
+  tpz::AriModel m;
   m.init(increment, threshold);
-  uint32_t low = 0, range = 0xFFFFFFFFu, code = 0;
-  int64_t i = 0;
-  for (int k = 0; k < 4; ++k) code = (code << 8) | (i < n ? src[i++] : 0);
-  for (int64_t t = 0; t < num_syms; ++t) {
-    uint32_t r = range / m.total;
-    uint32_t v = (code - low) / r;
-    if (v >= m.total) v = m.total - 1;
-    uint32_t acc;
-    int sym = m.find(v, &acc);
-    dst[t] = (uint8_t)sym;
-    low += r * acc;
-    range = r * m.freq[sym];
-    for (;;) {
-      if (((low ^ (low + range)) < A_TOP)) {
-      } else if (range < A_BOT) {
-        range = (uint32_t)(-(int64_t)low) & (A_BOT - 1);
-      } else {
-        break;
-      }
-      code = (code << 8) | (i < n ? src[i++] : 0);
-      low <<= 8;
-      range <<= 8;
-    }
-    m.update(sym);
-  }
+  tpz::ari_decode(m, src, n, dst, num_syms);
   return num_syms;
 }
 
 // ari encode with the fast-decode chunk index: deltas[c] = renorm bytes
-// emitted while coding symbols [64c, 64c+64) — identical to the Pallas
-// kernel's chunk_deltas (the decoder replays the same pulls), so host- and
-// chip-encoded staged containers are interchangeable.
+// emitted while coding symbols [64c, 64c+64).  The GPU coder runs the same
+// loop, so host- and GPU-encoded staged containers are interchangeable.
 int64_t tpz_ari_encode_indexed(const uint8_t* src, int64_t n, uint8_t* dst,
                                int64_t cap, uint32_t increment,
                                uint32_t threshold, int32_t* deltas,
                                int64_t nc) {
-  const int64_t CHUNK = 64;
-  AriModel m;
+  tpz::AriModel m;
   m.init(increment, threshold);
-  uint32_t low = 0, range = 0xFFFFFFFFu;
-  int64_t o = 0;
-  for (int64_t c = 0; c < nc; ++c) deltas[c] = 0;
-  for (int64_t i = 0; i < n; ++i) {
-    int sym = src[i];
-    uint32_t cumlo = m.cum_lo(sym);
-    uint32_t r = range / m.total;
-    low += r * cumlo;
-    range = r * m.freq[sym];
-    for (;;) {
-      if (((low ^ (low + range)) < A_TOP)) {
-      } else if (range < A_BOT) {
-        range = (uint32_t)(-(int64_t)low) & (A_BOT - 1);
-      } else {
-        break;
-      }
-      if (o >= cap) return -1;
-      dst[o++] = (uint8_t)(low >> 24);
-      if (i / CHUNK < nc) deltas[i / CHUNK]++;
-      low <<= 8;
-      range <<= 8;
-    }
-    m.update(sym);
-  }
-  for (int k = 0; k < 4; ++k) {
-    if (o >= cap) return -1;
-    dst[o++] = (uint8_t)(low >> 24);
-    low <<= 8;
-  }
-  return o;
+  return tpz::ari_encode_indexed(m, src, n, dst, cap, deltas, nc);
 }
 
 // ------------------------------------------------------------ bin/apm
 // Byte-level binary adaptive coder (bin.rs/apm.rs parity): bits MSB-first
 // through the shift-update model (optionally refined by the 33-cell APM
-// gate), carryless renorm — bit-exact vs tpuzip.codecs.bin_apm and the
-// Pallas bin coder kernel.
+// gate), carryless renorm — bit-exact vs tpuzip.codecs.bin_apm.
 namespace {
 struct ApmGateC {
   int32_t cell[33];
@@ -2080,8 +1950,8 @@ int64_t tpz_bin_encode(const uint8_t* src, int64_t n, uint8_t* dst,
                        int64_t cap, int bits, int rate, int use_apm,
                        int apm_rate, int32_t* deltas) {
   // deltas (nullable): bytes emitted per 256-bit chunk - the fast-decode
-  // chunk index the Pallas lane decoder needs (mirrors the ari coder's
-  // index so host- and chip-written bin containers stay interchangeable)
+  // chunk index the lane decoder needs (mirrors the ari coder's index so
+  // host- and device-written bin containers stay interchangeable)
   uint32_t low = 0, range = 0xFFFFFFFFu;
   int32_t p0 = 1 << (bits - 1);
   ApmGateC gate;
@@ -2257,14 +2127,13 @@ void tpz_inflate_plan_batch(const uint8_t* src, int64_t b, int64_t scap,
   });
 }
 
-// Build the ari decoder's per-chunk stream windows at host memcpy speed
-// (production prepack for kernels/range_decoder: the XLA take_along_axis
-// formulation is element-gather-bound at ~48M elem/s ~ 190 MB/s, while the
-// Pallas kernel itself runs at 280 MB/s).  For block row i, chunk k, word
+// Build the chunk-indexed lane decoder's per-chunk stream windows at host
+// memcpy speed (the bin/apm to_device decode; the XLA formulation is
+// codecs/ari_index.build_windows).  For block row i, chunk k, word
 // j: out word = big-endian u32 of stream bytes start_k+4j .. +3, with
 // start_0 = 4 (after code0) and start_{k+1} = start_k + deltas[i,k].
-// Output lane-major (B, NC*w) u32; the device transposes (bandwidth-bound,
-// not gather-bound) and feeds the kernel.
+// Output lane-major (B, NC*w) u32; the device transposes it and feeds the
+// decoder.
 void tpz_ari_build_windows(const uint8_t* streams, int64_t b, int64_t cap,
                            const int32_t* deltas, int64_t nc, int w,
                            uint32_t* out, int nthreads) {
@@ -2525,11 +2394,7 @@ void rotation_order_sais(const uint8_t* data, int64_t n, int32_t* rot) {
 
 }  // namespace
 
-// Forward BWT (threaded over blocks): rotation sort via SA-IS on the
-// doubled string — the suffix sort is branch-heavy pointer work the TPU's
-// batched lax.sort path handles at ~39 MB/s/chip; host SA-IS fans out
-// across cores.  Emits the last column and per-block origin, bit-exact vs
-// tpuzip.oracle.bwt.encode_block (incl. periodic ties).
+// Threaded ari encode with the fast-decode chunk index, one block per task.
 void tpz_ari_encode_indexed_batch(const uint8_t* src, int64_t b,
                                   int64_t cap, const int32_t* lens,
                                   uint8_t* dst, int64_t dcap,
@@ -2588,6 +2453,10 @@ void tpz_bin_decode_batch(const uint8_t* src, int64_t b, int64_t cap,
   });
 }
 
+// Forward BWT (threaded over blocks): rotation sort via SA-IS on the
+// doubled string, one block per task.  Emits the last column and per-block
+// origin, bit-exact vs tpuzip.oracle.bwt.encode_block (incl. periodic
+// ties).
 void tpz_bwt_forward_batch(const uint8_t* blocks, int64_t b, int64_t cap,
                            const int32_t* lens, uint8_t* L,
                            int32_t* origins, int nthreads) {
@@ -2608,9 +2477,9 @@ void tpz_bwt_forward_batch(const uint8_t* blocks, int64_t b, int64_t cap,
 }
 
 // Inverse BWT at host speed (threaded over blocks).  The LF walk is one
-// data-dependent load per output byte — latency-bound pointer chasing the
-// TPU cannot vectorize (no per-lane dynamic gather in Mosaic; the device
-// multi-walker formulation caps at ~38 MB/s).  Counting sort builds the
+// data-dependent load per output byte — latency-bound pointer chasing
+// that the host serves where the output lands anyway.  Counting sort
+// builds the
 // same stable-argsort inversion table as tpuzip.oracle.bwt.decode_block.
 void tpz_bwt_inverse_batch(const uint8_t* L, int64_t b, int64_t cap,
                            const int32_t* lens, const int32_t* origins,

@@ -204,7 +204,7 @@ def test_per_block_checksums_isolate_corruption():
 
 def test_runner_roundtrip_lz4p():
     mesh = meshlib.make_mesh(8)
-    data = (b"parallel decodable sequences, the TPU-native LZ. " * 500)
+    data = (b"parallel decodable sequences, the device-native LZ. " * 500)
     container = runner.compress(data, codec="lz4p", block_size=4096,
                                 mesh=mesh)
     assert len(container) < len(data)
@@ -283,7 +283,7 @@ def test_lz4_wplan8_runner_path():
 
 def test_decompress_to_device():
     """to_device=True returns device-resident blocks + lengths (the
-    decompress-into-device-memory path for TPU input pipelines)."""
+    decompress-into-device-memory path for input pipelines)."""
     import jax
 
     mesh = meshlib.make_mesh(8)
@@ -302,8 +302,7 @@ def test_decompress_to_device():
 
 def test_decompress_to_device_sliced_gather():
     """Batches wider than ~1.5x LZ4_DECODE_SLICE are served through
-    256-row gather slices (chip sweep: the bulk gather peaks at B=256);
-    the sliced path must byte-match the one-shot path, including a
+    LZ4_DECODE_SLICE-row gather slices; the sliced path must byte-match the one-shot path, including a
     ragged tail slice and corrupt-block isolation."""
     import jax
 
@@ -412,14 +411,14 @@ def test_crafted_corrupt_staged_headers_raise_typed_errors():
 
 
 def test_parse_chunk_index_rejects_oversized_and_truncated_escapes():
-    from tpuzip.kernels import range_decoder as rdk
+    from tpuzip.codecs import ari_index
 
-    good = rdk.pack_chunk_index(np.array([3, 255, 260], np.int64))
-    assert rdk.parse_chunk_index(good, 3).tolist() == [3, 255, 260]
+    good = ari_index.pack_chunk_index(np.array([3, 255, 260], np.int64))
+    assert ari_index.parse_chunk_index(good, 3).tolist() == [3, 255, 260]
     with pytest.raises(ValueError):
-        rdk.parse_chunk_index(bytes([255, 0xD0, 0x07]), 1)  # delta 2000
+        ari_index.parse_chunk_index(bytes([255, 0xD0, 0x07]), 1)  # 2000
     with pytest.raises(ValueError):
-        rdk.parse_chunk_index(bytes([255, 0x10]), 1)  # escape cut short
+        ari_index.parse_chunk_index(bytes([255, 0x10]), 1)  # cut short
 
 
 def test_runner_bin_apm_codecs():
@@ -647,8 +646,8 @@ def test_multihost_compress_metrics_phases():
 @pytest.mark.parametrize("codec", ["bin", "apm"])
 def test_bin_apm_to_device_lane_decoder(codec):
     """Round-4 chunk-indexed bin/apm serving decode: to_device routes
-    through the lane decoder (XLA reference replica off-TPU — identical
-    step math to the Pallas kernel) and must match the host bytes."""
+    through the chunk-indexed lane decoder (the XLA scan) and must match
+    the host bytes."""
     mesh = meshlib.make_mesh(8)
     data = (b"binary serving corpus \x00\xff " * 700)[:16000]
     c = runner.compress(data, codec=codec, block_size=2048, mesh=mesh)

@@ -40,6 +40,39 @@ def test_native_ari_bit_exact(samples):
         assert native.ari_decode(comp, len(s)) == s
 
 
+@pytest.mark.parametrize("knobs", [(16, 1 << 10), (8, 512), (24, 4096),
+                                   (1, 300)])
+def test_native_ari_step_vs_oracle_across_halving(rng, knobs):
+    """The coder loop the GPU kernel shares (csrc/ari_model.h) against the
+    oracle at non-default knobs, crossing many model halvings: streams,
+    chunk indexes and the decode round trip."""
+    inc, thr = knobs
+    n = 2048
+    rows = np.zeros((3, n), np.uint8)
+    rows[0] = rng.integers(0, 256, n)
+    rows[1] = rng.integers(0, 5, n)
+    rows[2, :777] = rng.integers(0, 256, 777)
+    lens = np.array([n, n, 777], np.int32)
+    comp, clens, deltas = native.ari_encode_indexed_batch(
+        rows, lens, n // 64, increment=inc, threshold=thr)
+    for i in range(3):
+        data = rows[i, : lens[i]].tobytes()
+        model = oari.TableModel(256, inc, thr)
+        enc = oari.RangeEncoder()
+        want_d = np.zeros(n // 64, np.int64)
+        for t, b in enumerate(data):
+            lo, hi = model.get_range(b)
+            before = len(enc.out)
+            enc.encode(lo, hi, model.get_denominator())
+            want_d[t // 64] += len(enc.out) - before
+            model.update(b)
+        assert comp[i, : clens[i]].tobytes() == enc.finish(), i
+        assert np.array_equal(deltas[i], want_d), i
+    out = native.ari_decode_batch_native(comp, clens, lens, n,
+                                         increment=inc, threshold=thr)
+    assert np.array_equal(out, rows)
+
+
 def test_native_payload_pack_roundtrip(rng):
     B, CAP = 16, 100
     comp = rng.integers(0, 256, (B, CAP), dtype=np.uint8)

@@ -28,7 +28,7 @@ def test_bwt_encode_batch_fast_vs_oracle(rng):
     blocks[3] = np.frombuffer(b"ab" * (N // 2), np.uint8)  # periodic ties
     blocks[4, :3] = (65, 66, 65)
     blocks[5] = 0                                          # max ties
-    # the public entry (routes to the threaded C++ sorter off-TPU) AND
+    # the public entry (routes to the implementation the backend table names) AND
     # the XLA device formulation must both match the oracle
     for fwd in (lambda b_, l: jbwt.encode_batch_fast(b_, l),
                 lambda b_, l: jbwt._encode_batch_fast(

@@ -1,16 +1,16 @@
-"""tpuzip — a TPU-native lossless compression framework.
+"""tpuzip — a lossless compression framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-expression of the codec family of
+A from-scratch JAX/XLA re-expression of the codec family of
 ``rusty-shell/rust-compress`` (LZ4, DEFLATE/zlib, BWT+MTF/DC, RLE, adaptive
-arithmetic coding, Adler-32), designed TPU-first:
+arithmetic coding, Adler-32), built for an accelerator:
 
 - each codec operates on *batches of independent blocks* (the data-parallel
-  axis of lossless compression), vectorized lane-wise on-chip;
+  axis of lossless compression), processed in parallel on the device;
 - sequential coder state machines (range coder, LZ token scans, MTF) run as
-  ``lax.scan`` / Pallas kernels *inside* a block, ``vmap``/``shard_map``
+  ``lax.scan`` or one CUDA thread *inside* a block, ``vmap``/``shard_map``
   *across* blocks;
-- multi-chip / multi-host scaling via ``jax.sharding.Mesh`` with XLA
-  collectives (table broadcast over ICI, ordered ragged gather of compressed
+- multi-device / multi-host scaling via ``jax.sharding.Mesh`` with XLA
+  collectives (table broadcast over the device interconnect, ordered ragged gather of compressed
   payloads);
 - a pure-CPU ``oracle`` package provides the bit-exactness contract
   (validated against system ``zlib`` and ``liblz4``).
@@ -60,7 +60,7 @@ def decompress_corpus(blob: bytes, pipeline: int = 2) -> bytes:
 
 def compress_from_device(blocks, lengths, codec: str = "lz4", **kw) -> bytes:
     """Compress device-resident (B, n) u8 blocks into a tpz container —
-    data leaves the chip compressed, never raw.  The inbound half is
+    data leaves the device compressed, never raw.  The inbound half is
     ``runner.decompress(..., to_device=True)``."""
     from tpuzip.dist import runner
 

@@ -1,4 +1,4 @@
-"""TPU codec layer — jit/vmap-friendly encode()/decode() over jnp arrays.
+"""Device codec layer — jit/vmap-friendly encode()/decode() over jnp arrays.
 
 Every codec follows the same contract:
 

@@ -1,4 +1,4 @@
-"""Adaptive arithmetic (ari) codec — TPU formulation.
+"""Adaptive arithmetic (ari) codec — XLA formulation.
 
 Format: tpuzip.oracle.ari — carryless Subbotin 32-bit range coder + adaptive
 order-0 table model (reference parity src/entropy/ari/{mod,table}.rs).

@@ -1,4 +1,4 @@
-"""Binary adaptive model + APM/SSE coder — TPU formulation.
+"""Binary adaptive model + APM/SSE coder — XLA formulation.
 
 Reference parity: src/entropy/ari/bin.rs (shift-update bit model) and
 src/entropy/ari/apm.rs (Bit cell + Gate secondary estimation).  Formats are
@@ -11,6 +11,8 @@ linear interpolation, exactly as the oracle does.
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -210,11 +212,8 @@ def encode_batch(blocks: jnp.ndarray, lengths: jnp.ndarray,
                  use_apm: bool = False):
     """(B, n) u8 byte blocks -> (comp (B, cap) u8, clens (B,) i32).
 
-    XLA scan formulation (vmapped encode_bits); the runner swaps in the
-    lane-parallel Pallas kernel (kernels.bin_coder) on TPU — identical
-    streams."""
-    import functools
-
+    XLA scan formulation (vmapped encode_bits); the runner encodes with
+    the threaded host C++ coder, which writes identical streams."""
     bits = bytes_to_bits(blocks)
     bit_lens = (jnp.asarray(lengths, jnp.int32) * 8)
     fn = functools.partial(encode_bits, model_bits=model_bits, rate=rate,
@@ -226,10 +225,168 @@ def decode_batch(comp: jnp.ndarray, lengths: jnp.ndarray, out_n: int,
                  model_bits: int = 12, rate: int = 5,
                  use_apm: bool = False):
     """(B, cap) u8 streams + per-block BYTE lengths -> (B, out_n) u8."""
-    import functools
-
     fn = functools.partial(decode_bits, model_bits=model_bits, rate=rate,
                            use_apm=use_apm)
     bits = jax.vmap(fn, in_axes=(0, 0, None))(
         comp, jnp.asarray(lengths, jnp.int32) * 8, 8 * out_n)
     return bits_to_bytes(bits)
+
+
+# ---------------------------------------------------------------------------
+# Chunk-indexed lane decoder (the to_device decode of staged bin/apm
+# containers).  The encoder records the stream bytes consumed per CHUNK
+# bits (codecs/ari_index.py), so every block's stream is pre-cut into
+# per-chunk windows of u32 words and the lanes (blocks) advance one bit
+# per scan step with no per-lane gathers into the stream.
+# ---------------------------------------------------------------------------
+
+CHUNK = 256                        # bits per chunk-index entry
+GATE_ROWS = (APM_SLOTS + 1) // 2   # APM cells, two u16 halves per i32 row
+
+
+def bin_window_words(max_delta: int) -> int:
+    """Window words per CHUNK-bit chunk.  A bit can emit up to 4 renorm
+    bytes, so the worst chunk consumes 4*CHUNK+4 bytes; size from the
+    largest delta of the batch instead."""
+    need = (max_delta + 8 + 3) // 4
+    for w in (16, 32, 64, 136, 264):
+        if w >= need:
+            return w
+    raise ValueError(f"bin chunk delta {max_delta} exceeds 4*CHUNK+4")
+
+
+def _gate_init_packed(lanes: int):
+    p_r = lax.broadcasted_iota(jnp.int32, (GATE_ROWS, lanes), 0)
+
+    def _init(s):
+        return jnp.clip((s * (1 << APM_BITS)) // (APM_SLOTS - 1),
+                        1, (1 << APM_BITS) - 1)
+
+    return _init(2 * p_r) | (_init(2 * p_r + 1) << 16)
+
+
+def _bin_decode_step(low, rng, code, p0, gate, posB, active, win_i, iotaW,
+                     iota_rows, *, model_bits: int, rate: int,
+                     use_apm: bool, apm_rate: int):
+    """One decode step over the lane axis; mirrors the encoder's model
+    math bit for bit.  State (lanes,), gate (GATE_ROWS, lanes) with APM
+    cells 2p / 2p+1 in the lo / hi u16 halves of row p, window
+    (w, lanes) i32 bit patterns; posB is the byte position inside the
+    current chunk's window."""
+    if use_apm:
+        gt = gate
+        scaled = p0 * (APM_SLOTS - 1)
+        idx = jnp.minimum(scaled >> APM_BITS, APM_SLOTS - 2)
+        frac = scaled & ((1 << APM_BITS) - 1)
+        last = jnp.where(frac < (1 << (APM_BITS - 1)), idx, idx + 1)
+        q = idx >> 1
+        acc0 = jnp.sum(jnp.where(iota_rows == q[None, :], gt, 0), axis=0)
+        acc1 = jnp.sum(jnp.where(iota_rows == (q + 1)[None, :], gt, 0),
+                       axis=0)
+        even = (idx & 1) == 0
+        a = jnp.where(even, acc0 & 0xFFFF, acc0 >> 16)
+        b = jnp.where(even, acc0 >> 16, acc1 & 0xFFFF)
+        pp = (a * ((1 << APM_BITS) - frac) + b * frac) >> APM_BITS
+        split = jnp.clip(pp, 1, (1 << APM_BITS) - 1)
+        denom_bits = APM_BITS
+    else:
+        split = p0
+        denom_bits = model_bits
+    r = rng >> denom_bits
+    v = jnp.minimum((code - low) // r, jnp.uint32((1 << denom_bits) - 1))
+    bit = (v >= split.astype(jnp.uint32)).astype(jnp.int32)
+    cl = jnp.where(bit == 0, 0, split).astype(jnp.uint32)
+    width = jnp.where(bit == 0, split,
+                      (1 << denom_bits) - split).astype(jnp.uint32)
+    low2 = low + r * cl
+    rng2 = r * width
+    # the next 4 stream bytes: two window words + byte alignment
+    widx = posB >> 2
+    w0 = jnp.sum(jnp.where(iotaW == widx[None, :], win_i, 0),
+                 axis=0).astype(jnp.uint32)
+    w1 = jnp.sum(jnp.where(iotaW == (widx + 1)[None, :], win_i, 0),
+                 axis=0).astype(jnp.uint32)
+    b_ = posB & 3
+    wrd = jnp.where(
+        b_ == 0, w0,
+        jnp.where(b_ == 1, (w0 << 8) | (w1 >> 24),
+                  jnp.where(b_ == 2, (w0 << 16) | (w1 >> 16),
+                            (w0 << 24) | (w1 >> 8))))
+    pulled = jnp.zeros_like(posB)
+    for rd_ in range(4):
+        settled = ((low2 ^ (low2 + rng2)) < TOP)
+        force = (~settled) & (rng2 < BOT)
+        rng2 = jnp.where(force, (~low2 + 1) & (BOT - 1), rng2)
+        pull = (settled | force) & active
+        byte = wrd >> 24
+        for kk in range(1, rd_ + 1):
+            byte = jnp.where(pulled == kk, (wrd >> (24 - 8 * kk)), byte)
+        byte = byte & jnp.uint32(0xFF)
+        code = jnp.where(pull, (code << 8) | byte, code)
+        low2 = jnp.where(pull, low2 << 8, low2)
+        rng2 = jnp.where(pull, rng2 << 8, rng2)
+        pulled = pulled + pull.astype(jnp.int32)
+    posB = posB + jnp.where(active, pulled, 0)
+    np0 = _bin_update(p0, bit, model_bits, rate)
+    p0 = jnp.where(active, np0, p0)
+    if use_apm:
+        cell = jnp.where(last == idx, a, b)
+        ncell = _bin_update(cell, bit, APM_BITS, apm_rate)
+        lp = last >> 1
+        lodd = (last & 1) == 1
+        packed_new = jnp.where(
+            lodd,
+            (gt & 0xFFFF) | (ncell[None, :] << 16),
+            (gt & ~jnp.int32(0xFFFF)) | ncell[None, :])
+        rowsel = iota_rows == lp[None, :]
+        gate = jnp.where(rowsel & active[None, :], packed_new, gt)
+    low = jnp.where(active, low2, low)
+    rng = jnp.where(active, rng2, rng)
+    return low, rng, code, p0, gate, posB, bit
+
+
+@functools.partial(jax.jit, static_argnames=(
+    "w", "model_bits", "rate", "use_apm", "apm_rate"))
+def bin_decode_reference(windows: jnp.ndarray, code0: jnp.ndarray,
+                         lens: jnp.ndarray, w: int,
+                         model_bits: int = 12, rate: int = 5,
+                         use_apm: bool = False, apm_rate: int = 5):
+    """windows: (NC*w, lanes) u32 per-chunk stream windows; code0 (lanes,)
+    u32 = first 4 stream bytes big-endian; lens (lanes,) i32 BIT counts.
+    Returns (NC*CHUNK, lanes) u8 bits, time-major (nested lax.scan: chunks
+    outside, the CHUNK bits of one window inside)."""
+    total_rows, lanes = windows.shape
+    assert total_rows % w == 0
+    nc = total_rows // w
+    iotaW = lax.broadcasted_iota(jnp.int32, (w, lanes), 0)
+    iota_rows = lax.broadcasted_iota(jnp.int32, (GATE_ROWS, lanes), 0)
+    win_chunks = windows.reshape(nc, w, lanes).astype(jnp.int32)
+    lens = lens.astype(jnp.int32)
+
+    def chunk_body(carry, xs):
+        low, rng, code, p0, gate = carry
+        win_i, k = xs
+
+        def step_body(c2, j):
+            low, rng, code, p0, gate, posB = c2
+            active = (k * CHUNK + j) < lens
+            low, rng, code, p0, gate, posB, bit = _bin_decode_step(
+                low, rng, code, p0, gate, posB, active, win_i, iotaW,
+                iota_rows, model_bits=model_bits, rate=rate,
+                use_apm=use_apm, apm_rate=apm_rate)
+            return (low, rng, code, p0, gate, posB), bit.astype(jnp.uint8)
+
+        (low, rng, code, p0, gate, _), bits = lax.scan(
+            step_body,
+            (low, rng, code, p0, gate, jnp.zeros((lanes,), jnp.int32)),
+            jnp.arange(CHUNK, dtype=jnp.int32))
+        return (low, rng, code, p0, gate), bits
+
+    init = (jnp.zeros((lanes,), jnp.uint32),
+            jnp.full((lanes,), 0xFFFFFFFF, jnp.uint32),
+            code0.astype(jnp.uint32),
+            jnp.full((lanes,), 1 << (model_bits - 1), jnp.int32),
+            _gate_init_packed(lanes))
+    _, bits = lax.scan(chunk_body, init,
+                       (win_chunks, jnp.arange(nc, dtype=jnp.int32)))
+    return bits.reshape(nc * CHUNK, lanes)

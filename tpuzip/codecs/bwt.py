@@ -1,4 +1,4 @@
-"""Burrows–Wheeler transform — TPU formulation.
+"""Burrows–Wheeler transform — XLA formulation.
 
 Format/semantics: tpuzip.oracle.bwt (cyclic-rotation BWT + origin; reference
 parity src/bwt/mod.rs).
@@ -95,10 +95,10 @@ decode_batch = jax.vmap(decode_block, in_axes=(0, 0, 0))
 
 
 # ---------------------------------------------------------------------------
-# Batched fast paths (round 2).  lax.sort throughput rises steeply with
-# size (41 ms fixed cost per call on the target chip), so the whole block
-# batch sorts in ONE row-wise lax.sort per doubling round instead of a
-# vmapped per-block sort; the first round ranks by SIX cyclic bytes as two
+# Batched fast paths.  lax.sort has a large fixed cost per call, so the
+# whole block batch sorts in ONE row-wise lax.sort per doubling round
+# instead of a vmapped per-block sort; the first round ranks by SIX cyclic
+# bytes as two
 # 3-byte keys (h=6 head start); a while_loop exits as soon as every row's
 # ranks are unique (text resolves long before log2(N) rounds), and the
 # resolving round's sort order doubles as the suffix array.
@@ -108,8 +108,7 @@ import functools
 
 # Rank-combination width for the packed (full-row, n<=64K) doubling sort:
 # ranks fetched per round at k..(PACKED_WAY-1)k, context ×PACKED_WAY per
-# round.  Trace-time constant; bench/bwt_fwd_chip.py A/Bs the widths —
-# chip 2026-08-19 (128×64 KiB text): way-4 47.6, way-8 52.9 MB/s.
+# round.  Trace-time constant; not yet measured on the H100.
 PACKED_WAY = 8
 
 
@@ -119,26 +118,23 @@ def encode_batch_fast(blocks: jnp.ndarray, lengths: jnp.ndarray):
     Same cyclic-rotation BWT as encode_block (oracle parity) — identical
     suffix arrays including periodic ties (stable sorts, index tiebreak).
 
-    On TPU the batched lax.sort doubling formulation below is production
-    (111 MB/s/chip driver-captured at round 3: packed way-8 rank
-    combination + the L-carry payload).  Off-TPU the threaded
-    C++ rotation sort (mkq fast path + SA-IS fallback, ~36 MB/s at 4
-    cores, scales with cores) replaces the XLA CPU sort.  Both are
-    bit-exact vs the oracle incl. periodic ties."""
+    The backend table (tpuzip.dist.backend, stage "bwt_forward") picks the
+    threaded C++ rotation sort (mkq fast path + SA-IS fallback) or the
+    batched lax.sort doubling formulation below; under a jit trace only
+    the latter applies.  Both are bit-exact vs the oracle incl. periodic
+    ties."""
     import numpy as np
 
-    if not isinstance(blocks, jax.core.Tracer) \
-            and jax.devices()[0].platform != "tpu":
-        try:
-            from tpuzip.runtime import native
+    from tpuzip.dist import backend
 
-            if native.available():
-                L, origins = native.bwt_forward_batch(
-                    np.asarray(jax.device_get(blocks)),
-                    np.asarray(jax.device_get(lengths), np.int32))
-                return jnp.asarray(L), jnp.asarray(origins)
-        except Exception:
-            pass
+    if not isinstance(blocks, jax.core.Tracer) \
+            and backend.impl("bwt_forward") == backend.HOST:
+        from tpuzip.runtime import native
+
+        L, origins = native.bwt_forward_batch(
+            np.asarray(jax.device_get(blocks)),
+            np.asarray(jax.device_get(lengths), np.int32))
+        return jnp.asarray(L), jnp.asarray(origins)
     all_full = bool((np.asarray(lengths) == blocks.shape[1]).all())
     return _encode_batch_fast(blocks, lengths, all_full)
 
@@ -172,7 +168,7 @@ def _encode_batch_fast(blocks: jnp.ndarray, lengths: jnp.ndarray,
 
     def inv_perm(order_, vals):
         """rank[p] = vals at sorted position of p (permutation inversion
-        via sort — faster than scatter on v5e)."""
+        via sort rather than scatter)."""
         if packed:
             pk = (order_.astype(jnp.uint32) << 16) | vals.astype(jnp.uint32)
             return lax.sort(pk, dimension=1).astype(
@@ -224,12 +220,10 @@ def _encode_batch_fast(blocks: jnp.ndarray, lengths: jnp.ndarray,
         cnt = jnp.minimum(lengths, n)
         return jnp.all((mx + 1) == cnt)
 
-    # TPU cost note (measured v5e): random gathers/scatters run ~45M
-    # elem/s while the batched row sort runs ~244M keys/s — so the
-    # rank-at-offset fetch and the permutation inversion are reformulated
-    # as a roll and a sort.  The roll is exact only when every row is full
-    # (cyclic index (i+k) mod len == mod n); ragged batches keep the
-    # gather.
+    # The rank-at-offset fetch and the permutation inversion are
+    # formulated as a roll and a sort rather than gathers and scatters.
+    # The roll is exact only when every row is full (cyclic index
+    # (i+k) mod len == mod n); ragged batches keep the gather.
 
     def second_at(rank, k):
         if all_full:
@@ -336,8 +330,9 @@ def _encode_batch_fast(blocks: jnp.ndarray, lengths: jnp.ndarray,
 
 def _walk_rounds(b: int, n: int) -> int:
     """Cost model for the multi-walker inverse: r pointer-doubling rounds
-    (each a full (B,N) gather, ~22ns/elem measured on v5e) buy a 2^r-wide
-    walk whose scan costs ~13us/iteration (measured)."""
+    (each a full (B,N) gather, ~22 ns/elem) buy a 2^r-wide walk whose scan
+    costs ~13 us/iteration.  The constants are not yet measured on the
+    H100."""
     best_r, best_c = 0, float("inf")
     for r in range(0, 7):
         c = r * (b * n) * 22e-9 + (n / (1 << r)) * 13e-6
@@ -387,12 +382,9 @@ def decode_batch_auto(L: jnp.ndarray, origins: jnp.ndarray,
                       lengths: jnp.ndarray, use_extra_memory: bool = True):
     """Inverse BWT for a batch, production path.
 
-    The LF walk is one data-dependent load per output byte — pointer
-    chasing Mosaic cannot vectorize (no per-lane dynamic gather); the
-    device multi-walker formulation caps at ~38 MB/s/chip while threaded
-    C++ runs 400+ MB/s on the host the output lands on anyway
-    (docs/DESIGN.md note 11's rule).  Falls back to the device walk when
-    the native runtime is absent or under a jit trace.
+    The LF walk is one data-dependent load per output byte; the threaded
+    C++ walk serves it on the host the output lands on anyway, and the
+    device multi-walker formulation serves it under a jit trace.
 
     use_extra_memory=False (the reference Decoder's low-memory knob)
     declines the host inversion's 4n-byte aux table and keeps the walk in
@@ -402,16 +394,12 @@ def decode_batch_auto(L: jnp.ndarray, origins: jnp.ndarray,
     import numpy as _np
 
     if use_extra_memory and not isinstance(L, jax.core.Tracer):
-        try:
-            from tpuzip.runtime import native
+        from tpuzip.runtime import native
 
-            if native.available():
-                out = native.bwt_inverse_batch(
-                    _np.asarray(jax.device_get(L)),
-                    _np.asarray(jax.device_get(lengths), _np.int32),
-                    _np.asarray(jax.device_get(origins), _np.int32))
-                return jnp.asarray(out)
-        except Exception:
-            pass
+        out = native.bwt_inverse_batch(
+            _np.asarray(jax.device_get(L)),
+            _np.asarray(jax.device_get(lengths), _np.int32),
+            _np.asarray(jax.device_get(origins), _np.int32))
+        return jnp.asarray(out)
     return decode_batch_fast(L, origins, lengths,
                              walkers_log2=_walk_rounds(b, n))

@@ -1,4 +1,4 @@
-"""Distance coding — TPU formulation (format: tpuzip.oracle.dc; reference
+"""Distance coding — XLA formulation (format: tpuzip.oracle.dc; reference
 parity src/bwt/dc.rs).
 
 Encode is parallel: run decomposition (compare-shift), per-symbol first
@@ -12,8 +12,6 @@ Output expansion is the usual parallel run-fill.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -59,10 +57,7 @@ def encode(block: jnp.ndarray, length: jnp.ndarray,
     run_id = jnp.cumsum(head.astype(jnp.int32)) - 1
     num_runs = jnp.maximum(run_id[-1] + 1, 0)
 
-    # per-run tables by SORT-COMPACTION, not scatter: batched row sorts
-    # run ~244M keys/s on v5e vs ~48M scattered elems (docs/DESIGN.md) —
-    # the scatter version of this function measured 6.8 MB/s/chip inside
-    # the bwtdc chain at 1024-block batches (bench/gib_chip_r4.json).
+    # per-run tables by SORT-COMPACTION, not scatter (docs/DESIGN.md).
     # run_id is strictly increasing on heads, so compaction keys are
     # unique where valid; ties only among the masked tail.
     rid_key = jnp.where(head, run_id, n)
@@ -138,8 +133,7 @@ def _parse_varints(comp32: jnp.ndarray, comp_len: jnp.ndarray,
         val = val | jnp.where(include & inb,
                               (bk & 0x7F) << (7 * k), 0)
         include = include & (bk >= 0x80)
-    # compact run-ordered values with a stable sort (cheaper than scatter
-    # on v5e: batched row sorts run ~244M keys/s vs ~48M scattered elems)
+    # compact run-ordered values with a stable sort rather than a scatter
     key = jnp.where(is_start, ordinal, jnp.int32(cap + 1))
     _, vals_sorted = lax.sort([key, val], num_keys=1, is_stable=True)
     return lax.slice(vals_sorted, (0,), (max_steps,))
@@ -228,59 +222,3 @@ encode_batch = jax.vmap(encode, in_axes=(0, 0))
 def decode_batch(comp, comp_lens, out_n: int, max_steps: int | None = None):
     return jax.vmap(lambda c, l: decode(c, l, out_n, max_steps))(
         comp, comp_lens)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("out_n", "max_steps", "interpret"))
-def _decode_lane_group(comp, comp_lens, out_n: int, max_steps: int,
-                       interpret: bool = False):
-    from tpuzip.kernels.dc_scan import CHUNK, dc_decode_lanes
-    from tpuzip.kernels.range_coder import lane_width
-
-    b, cap = comp.shape
-    # lanes capped at 512: the DC kernel carries four (CHUNK, lanes) i32
-    # block buffers + the (256, lanes) scheduler — 1024 lanes overflow
-    # VMEM, and scaling is mild anyway (27/28/31 MB/s at 128/256/512 on
-    # run-dense data: per-step vector work dominates, unlike ari)
-    LANES = min(lane_width(b), 512)
-    T = max_steps + (-max_steps) % CHUNK
-    comp32 = comp.astype(jnp.int32)
-    length = (comp32[:, 0] | (comp32[:, 1] << 8) | (comp32[:, 2] << 16)
-              | (comp32[:, 3] << 24))
-    length = jnp.minimum(length, out_n)
-    h4 = comp32[:, 4 : 4 + 1024].reshape(b, 256, 4)
-    first = (h4[..., 0] | (h4[..., 1] << 8) | (h4[..., 2] << 16)
-             | (h4[..., 3] << 24))                       # (b, 256)
-    vals = jax.vmap(lambda c, l: _parse_varints(c, l, T))(
-        comp32, jnp.asarray(comp_lens, jnp.int32))       # (b, T)
-    valsT = jnp.zeros((T, LANES), jnp.int32).at[:, :b].set(vals.T)
-    firstT = jnp.zeros((256, LANES), jnp.int32).at[:, :b].set(first.T)
-    lensT = jnp.zeros(LANES, jnp.int32).at[:b].set(length)
-    starts, rlens, syms, err = dc_decode_lanes(valsT, firstT, lensT,
-                                               interpret=interpret)
-    out = jax.vmap(
-        lambda s_, l_, y_, ln: _run_fill(s_, l_, y_, ln, out_n))(
-        starts.T[:b], rlens.T[:b], syms.T[:b], length)
-    return out, length, err[:b]
-
-
-def decode_batch_kernel(comp, comp_lens, out_n: int, max_steps: int,
-                        interpret: bool = False):
-    """Pallas lane-kernel DC decode (kernels/dc_scan): varints pre-parsed
-    in parallel by XLA, one RUN per VPU step across 128 lanes, run-fill in
-    XLA.  Splits batches > 128 into lane groups.  Same contract as
-    decode_batch: -> (out (B, out_n) u8, out_len (B,) i32, err (B,))."""
-    from tpuzip.kernels.range_coder import lane_width
-
-    b = comp.shape[0]
-    width = min(lane_width(b), 512)  # VMEM cap; see _decode_lane_group
-    outs, lens_, errs = [], [], []
-    for g in range(0, b, width):
-        o, ln, e = _decode_lane_group(comp[g : g + width],
-                                      jnp.asarray(comp_lens)[g : g + width],
-                                      out_n, max_steps, interpret)
-        outs.append(o)
-        lens_.append(ln)
-        errs.append(e)
-    return (jnp.concatenate(outs), jnp.concatenate(lens_),
-            jnp.concatenate(errs))

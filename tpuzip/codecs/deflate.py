@@ -1,4 +1,4 @@
-"""DEFLATE — TPU formulation (RFC 1951; reference parity src/flate.rs).
+"""DEFLATE — XLA formulation (RFC 1951; reference parity src/flate.rs).
 
 Work split follows where the bytes/s live (SURVEY §7 "hard parts"):
 

@@ -1,4 +1,4 @@
-"""LZ4 block codec — TPU formulation.
+"""LZ4 block codec — XLA formulation.
 
 Format: the public LZ4 block spec, bit-compatible with tpuzip.oracle.lz4 and
 system liblz4 (reference parity: rust-compress src/lz4.rs).
@@ -327,8 +327,8 @@ decode_batch = jax.vmap(decode, in_axes=(0, 0, None))
 
 @functools.partial(jax.jit, static_argnames=())
 def _gather_plan(comp, plans, olens):
-    # flat 1-D i32-table gather: measured ~20% over the batched
-    # take_along_axis u8 form on v5e (48 vs 40 MB/s at (32, 64 KiB))
+    # flat 1-D i32-table gather rather than the batched take_along_axis
+    # u8 form
     b, cap = comp.shape
     n = plans.shape[1]
     row = (jnp.arange(b, dtype=jnp.int32) * cap)[:, None]
@@ -343,10 +343,7 @@ def _gather_wplan(comp, patches, wplans, olens):
     """Word-plan decode executor: one address per output WORD (see csrc
     tpz_lz4_decode_wplan) — fetch the pair of adjacent i32 words of the
     virtual table [comp row | patch row] covering bytes addr..addr+3 and
-    shift-combine.  ONE 2-wide row gather per 4 output bytes: measured
-    61 MB/s on v5e vs 48 for the per-byte flat gather (row gathers beat
-    two element gathers; the gather unit sustains ~48M elements/s
-    regardless of element width)."""
+    shift-combine.  ONE 2-wide row gather per 4 output bytes."""
     b, cap = comp.shape
     nw = wplans.shape[1]
     vt = jnp.concatenate([comp, patches], axis=1)
@@ -373,7 +370,7 @@ def _gather_wplan8(comp, patches, wplans, olens):
     fetch the three adjacent u32 words of the virtual table
     [comp row | patch row] covering bytes addr..addr+11 and funnel-shift
     two output words.  HALF the gather rows of _gather_wplan per output
-    byte (the v5e gather unit is row-count bound at ~48M rows/s)."""
+    byte."""
     b, cap = comp.shape
     nw = wplans.shape[1]
     vt = jnp.concatenate([comp, patches], axis=1)
@@ -403,7 +400,7 @@ def _gather_wplan16(comp, patches, wplans, olens):
     bytes — fetch the five adjacent u32 words of the virtual table
     [comp row | patch row] covering bytes addr..addr+19 and funnel-shift
     four output words.  QUARTER the gather rows of _gather_wplan per
-    output byte (the v5e gather unit is row-count bound)."""
+    output byte."""
     b, cap = comp.shape
     nw = wplans.shape[1]
     vt = jnp.concatenate([comp, patches], axis=1)
@@ -485,7 +482,7 @@ def decode_batch_planned(comp_np, clens_np, out_n: int):
     output byte to its source LITERAL position in the compressed stream at
     host memory speed (csrc tpz_lz4_decode_plan), and the device executes
     the whole block batch as ONE bulk gather — no sequential token loop on
-    the chip at all.
+    the device at all.
 
     Returns (out (B, out_n) u8 device, olens (B,) i32, errs (B,) i32)."""
     import numpy as np

@@ -2,7 +2,7 @@
 
 The LZ4 *bitstream* interleaves tokens, so decode position discovery is
 inherently serial.  lz4p keeps LZ4's parse (same candidate search and greedy
-resolution, same matches) but serializes COLUMNAR, which is the TPU-first
+resolution, same matches) but serializes COLUMNAR, which is the parallel-first
 redesign the BASELINE north star calls "decode ... with speculative token
 expansion" (cf. ACEAPEX, PAPERS.md):
 
@@ -22,13 +22,10 @@ Decode has NO sequential loop:
 Ratio cost vs LZ4: 6 bytes per sequence (3 u16 columns) vs ~3 — the price
 of random-access decode.  Requires block_size <= 65536 (u16 columns).
 
-Measured (v5 lite): decode 2.3 MB/s at B=32x64KiB — NOT faster than the
-sequential-scan decoder (21 MB/s), because v5e gathers run at ~100 M
-elements/s and this formulation still needs ~15 full-array gather passes
-(cover/fill + log-depth root chase).  The lesson (docs/DESIGN.md): on this
-target, data-dependent byte shuffling is gather-bound regardless of
-formulation; lz4p's value is on gather-rich backends and as the
-random-access container format.
+This formulation needs ~15 full-array gather passes (cover/fill +
+log-depth root chase), so its device decode is gather-bound; its speed on
+the H100 is not yet measured.  It is also the random-access container
+format.
 """
 
 from __future__ import annotations

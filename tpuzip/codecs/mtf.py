@@ -1,8 +1,8 @@
-"""Move-to-front — TPU formulation (reference parity src/bwt/mtf.rs).
+"""Move-to-front — XLA formulation (reference parity src/bwt/mtf.rs).
 
 State is the *rank permutation* ``rank_of[sym]`` (256,), updated wholly
 vectorized per step: symbols cheaper than the hit get +1, the hit goes to 0.
-One `lax.scan` step per byte, O(256) VPU work — vmapped across blocks.
+One `lax.scan` step per byte, O(256) vector work — vmapped across blocks.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""RLE codec — TPU formulation.
+"""RLE codec — XLA formulation.
 
 Format: tpuzip.oracle.rle (pair-then-count; reference parity src/rle.rs).
 

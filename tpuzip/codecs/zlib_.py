@@ -1,4 +1,4 @@
-"""zlib container (RFC 1950) over the TPU deflate codec.
+"""zlib container (RFC 1950) over the deflate codec.
 
 Reference parity: rust-compress src/zlib.rs (header parse, Adler-32 check).
 The Adler-32 runs on device (core.checksum); header assembly is 2 bytes.

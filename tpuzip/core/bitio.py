@@ -1,6 +1,6 @@
 """Parallel bit/byte packing — prefix-sum offset resolution.
 
-The TPU reformulation of every serial "append to the output stream" loop in
+The parallel reformulation of every serial "append to the output stream" loop in
 the reference: per-token emission sizes -> exclusive ``cumsum`` -> scatter
 into a fixed-capacity output buffer (mode='drop' discards masked lanes).
 This is the PivCo-Huffman / LZ4-accelerator pattern from PAPERS.md.
@@ -22,9 +22,8 @@ def pack_bytes_varlen_sorted(chunks: jnp.ndarray, lens: jnp.ndarray,
                              cap: int) -> tuple[jnp.ndarray, jnp.ndarray]:
     """pack_bytes_varlen via sort-compaction instead of scatter.
 
-    Identical contract; on v5e, batched row sorts run ~244M keys/s while
-    batched scatters run ~48M elems/s (docs/DESIGN.md) — under vmap this
-    variant is ~5x faster for T*K in the 100K+ range.  Valid bytes get
+    Identical contract; a batched row sort replaces the scatter
+    (docs/DESIGN.md).  Valid bytes get
     unique contiguous destination keys 0..total-1, so the stable sort IS
     the compaction; masked bytes all key to `cap` and fall off the slice."""
     import jax

@@ -1,7 +1,7 @@
 """Block segmentation — the load-bearing scaling axis.
 
 The reference scales input length by block segmentation (BWT block-size knob,
-LZ4 frame max-block-size); the TPU build turns that into the data-parallel
+LZ4 frame max-block-size); this build turns that into the data-parallel
 axis: a corpus becomes a ``(num_blocks, block_size)`` u8 array + a lengths
 vector, sharded over the device mesh.  Fixed shapes keep XLA happy; lengths
 carry the ragged truth.

@@ -3,7 +3,7 @@
 The reference's "config surface" is Cargo feature flags plus constructor
 parameters (BWT block size, ari model increments/thresholds, LZ4 frame block
 size...).  Those knobs are preserved here as dataclass fields; mesh/runtime
-knobs are new TPU-side configuration (SURVEY.md §5 'Config / flag system').
+knobs are new device-side configuration (SURVEY.md §5 'Config / flag system').
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Collective building blocks over the device mesh.
 
-The reference has no communication backend at all; these are the TPU-native
-equivalents (SURVEY §5): XLA collectives over ICI — no NCCL/MPI.
+The reference has no communication backend at all; these are the
+device-side equivalents (SURVEY §5): XLA collectives over the device
+interconnect (NCCL between GPUs).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from tpuzip.core.bitio import exclusive_cumsum
 
 def broadcast_from_zero(mesh: Mesh, x: jnp.ndarray) -> jnp.ndarray:
     """Broadcast device 0's value to every device over the dp axis (the
-    'shared Huffman/BWT tables over ICI' primitive)."""
+    'shared Huffman/BWT tables over the interconnect' primitive)."""
 
     def body(x):
         i = lax.axis_index("dp")
@@ -36,7 +37,7 @@ def ragged_ordered_gather(mesh: Mesh, comp: jnp.ndarray, lens: jnp.ndarray,
     comp: (B, CAP) u8 sharded over dp; lens: (B,) i32 sharded over dp.
     Every device packs its local blocks contiguously (prefix-sum pack),
     block sizes are all-gathered to compute global offsets, and payloads are
-    placed at their submission-order offsets (all_gather over ICI + local
+    placed at their submission-order offsets (all_gather over the interconnect + local
     scatter).  Returns (stream (cap_total,) u8 replicated, total i32).
     """
     b, cap = comp.shape

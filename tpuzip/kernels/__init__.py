@@ -1,12 +1,7 @@
-"""Pallas TPU kernels for the hot sequential codecs.
+"""Hand-written device kernels.
 
-The framework's central kernel pattern is the **lane-parallel multi-stream
-scan**: TPU grid cells execute sequentially on a core, so single-chip
-throughput for inherently-serial coder loops (MTF, the range coder) comes
-from processing LANES=128 independent blocks per VPU step, with all
-per-stream state held as (state, 128) arrays in VMEM and every update
-expressed as one-hot masked vector ops (no gathers).  The grid streams the
-block length in chunks; scratch persists across grid steps.
-
-Every kernel has interpret-mode support so tests run CPU-hermetic.
+`ari_cuda`: the ari range coder as a CUDA kernel called through `jax.ffi`
+(one stream per thread or per warp), byte-identical to the host C++ coder.
+Every other device stage is plain XLA in tpuzip.codecs; the backend table
+(tpuzip.dist.backend) says which implementation serves each stage.
 """

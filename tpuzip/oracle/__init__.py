@@ -1,11 +1,11 @@
 """Pure-CPU (NumPy/stdlib) reference implementations of every codec.
 
 This layer is the *bit-exactness contract*: the formats here are the formats
-the TPU kernels must produce/consume.  Where a public spec exists (LZ4 block
+the device codecs must produce/consume.  Where a public spec exists (LZ4 block
 and frame format, DEFLATE RFC 1951, zlib RFC 1950, Adler-32) the oracle is
 validated against system ``zlib``/``liblz4``; for the spec-less codecs of the
 reference family (BWT framing, MTF, DC, RLE, ari) the oracle *defines* the
-format and the TPU path is validated against it.
+format and the device path is validated against it.
 
 Reference parity map (rust-compress, layout per SURVEY.md — line numbers
 approximate, mount unavailable at survey time):

@@ -13,9 +13,10 @@ survey time), so this module defines the coder as a **Subbotin-style
 carryless 32-bit range coder**: renormalization emits the top byte whenever
 the top byte of ``low`` is settled, and *forces* range down at the BOT
 boundary instead of propagating carries.  This choice is deliberate and
-TPU-motivated: every state transition touches bounded u32 state and emits at
+accelerator-motivated: every state transition touches bounded u32 state and emits at
 most ``MAX_RENORM`` bytes, so the whole coder maps onto a fixed-shape
-``lax.scan`` / Pallas loop with no unbounded carry chains.
+``lax.scan`` or one-thread-per-stream kernel loop with no unbounded
+carry chains.
 
 Invariants: ``range >= BOT`` between symbols; model totals must be ``<= BOT``.
 """

@@ -10,7 +10,7 @@ rotation 0).  The inverse is the standard counting-sort "next array" walk,
 which is exactly the reference's inversion-table scheme.
 
 Forward sort here uses prefix doubling over cyclic ranks (O(n log n) with
-``numpy.lexsort``) — the same algorithm the TPU path expresses with
+``numpy.lexsort``) — the same algorithm the device path expresses with
 ``jax.lax.sort`` rounds, so both sides produce identical suffix arrays.
 
 Block framing (defined here; mount was empty so the upstream field order is

@@ -323,7 +323,7 @@ def lz77_parse(data: bytes, max_chain: int = 128,
     """Greedy/lazy LZ77 parse.
 
     Returns tokens ``(literal, 0, byte)`` or ``(0, length, dist)`` — encoded
-    as (is_literal, length, value).  Hash-chain search mirrors what the TPU
+    as (is_literal, length, value).  Hash-chain search mirrors what the device
     encoder does with vectorized bounded-depth probes.
     """
     n = len(data)

@@ -10,7 +10,7 @@ so correctness is cross-validated against system ``liblz4``:
   - our encoder's output decodes with ``LZ4_decompress_safe``;
   - our decoder decodes ``LZ4_compress_default`` output bit-exactly.
 
-Block format recap (the hot loop the TPU kernel replays):
+Block format recap (the hot loop the device codec replays):
   repeat:
     token byte: hi nibble = literal length (15 => +0xFF ext bytes),
                 lo nibble = match length - 4 (15 => +0xFF ext bytes)
@@ -173,7 +173,7 @@ _BD_MAX_SIZES = {4: 1 << 16, 5: 1 << 18, 6: 1 << 20, 7: 1 << 22}
 def compress_frame(data: bytes, block_max: int = 1 << 20,
                    content_checksum: bool = True,
                    block_checksum: bool = False) -> bytes:
-    """LZ4 frame with independent blocks (the DP axis for the TPU build)."""
+    """LZ4 frame with independent blocks (the DP axis for the device build)."""
     bd_id = {v: k for k, v in _BD_MAX_SIZES.items()}[block_max]
     out = bytearray(struct.pack("<I", MAGIC))
     # FLG: version=01, block-independence=1, checksum flags

@@ -3,7 +3,7 @@
 Reference parity: rust-compress ``src/rle.rs`` (repeated-byte pair triggers a
 run-count byte).  The exact upstream escape scheme could not be verified
 against the mount (empty at survey time — SURVEY.md provenance note), so this
-module *defines* the format the TPU kernels implement:
+module *defines* the format the device codecs implement:
 
   - bytes are copied verbatim;
   - whenever two consecutive equal bytes have been emitted, a count byte N

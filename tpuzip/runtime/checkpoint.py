@@ -90,15 +90,9 @@ def run_job(data: bytes, workdir: str | None = None, codec: str = "lz4",
                        total_blocks=B, orig_len=len(data))
         man.save()
 
-    native = None
-    if codec in ("lz4", "rle", "deflate"):
-        try:
-            from tpuzip.runtime import native as _native
+    from tpuzip.runtime import native
 
-            if _native.available():
-                native = _native
-        except Exception:
-            native = None
+    host_encoder = codec in ("lz4", "rle", "deflate")
     enc, _ = _ENCODERS[codec]
     enc_jit = jax.jit(enc)
     injected = set(fail_batches or ())
@@ -114,7 +108,7 @@ def run_job(data: bytes, workdir: str | None = None, codec: str = "lz4",
         if pad:
             bb = np.concatenate([bb, np.zeros((pad, block_size), np.uint8)])
             ll = np.concatenate([ll, np.zeros(pad, np.int32)])
-        if native is not None:
+        if host_encoder:
             # production threaded host encoders (same ones runner.compress
             # uses); per-block outputs stay deterministic, so resume
             # remains bitwise-identical

@@ -1,43 +1,51 @@
-"""ctypes bindings to the C++ host runtime (csrc/libtpuzip_host.so).
+"""ctypes bindings to the C++ host runtime (csrc/libtpz_host.so).
 
-Auto-builds on first use if a toolchain is available; every entry point has
-a pure-Python fallback (tpuzip.oracle), so the framework works without it —
-the native path is the fast host-side lane for container assembly and the
-CPU bench baseline.
+The library is built from the tracked sources by `make -C csrc` on first
+use in every process, so a library older than its sources is rebuilt; a
+failed build raises NativeBuildError with make's output.  The threaded
+host stages here serve container framing and every codec stage the
+backend table (tpuzip.dist.backend) assigns to the host.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
+import sys
 
 import numpy as np
 
-_CSRC = os.path.join(os.path.dirname(__file__), "..", "..", "csrc")
-_LIB_PATH = os.path.abspath(os.path.join(_CSRC, "libtpuzip_host.so"))
+_CSRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..",
+                                     "csrc"))
+_LIB_PATH = os.path.join(_CSRC, "libtpz_host.so")
 _lib = None
-_tried = False
 
 
-def _build() -> bool:
-    try:
-        subprocess.run(["make", "-C", os.path.abspath(_CSRC)], check=True,
-                       capture_output=True, timeout=120)
-        return os.path.exists(_LIB_PATH)
-    except Exception:
-        return False
+class NativeBuildError(RuntimeError):
+    """`make -C csrc` failed; the message carries its output."""
+
+
+def run_make(target: str = "all") -> None:
+    """Run `make -C csrc <target>` under a lock shared by every process of
+    this checkout (test workers build concurrently)."""
+    with open(os.path.join(_CSRC, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        r = subprocess.run(["make", "-C", _CSRC, target,
+                            f"PYTHON={sys.executable}"],
+                           capture_output=True, text=True)
+    if r.returncode != 0:
+        raise NativeBuildError(
+            f"make -C csrc {target} failed (exit {r.returncode}):\n"
+            f"{r.stdout[-4000:]}{r.stderr[-8000:]}")
 
 
 def get_lib():
-    global _lib, _tried
+    global _lib
     if _lib is not None:
         return _lib
-    if _tried:
-        return None
-    _tried = True
-    if not os.path.exists(_LIB_PATH) and not _build():
-        return None
+    run_make()
     lib = ctypes.CDLL(_LIB_PATH)
     i64, u32, u8p, i32p = (ctypes.c_int64, ctypes.c_uint32,
                            ctypes.POINTER(ctypes.c_uint8),
@@ -179,6 +187,7 @@ def get_lib():
 
 
 def available() -> bool:
+    """True once the library is built and loaded (a failed build raises)."""
     return get_lib() is not None
 
 
@@ -598,7 +607,7 @@ def ari_encode_indexed_batch(blocks: np.ndarray, lengths: np.ndarray,
                              nc: int, increment: int = 8,
                              threshold: int = 1 << 13, nthreads: int = 0):
     """Threaded adaptive-ari encode with the fast-decode chunk index
-    (bit-exact streams AND deltas vs the Pallas kernel / XLA scan).
+    (bit-exact streams AND deltas vs the CUDA coder / XLA scan).
     Returns (comp (B, dcap) u8, clens (B,) i64, deltas (B, nc) i32)."""
     lib = get_lib()
     blocks = np.asarray(blocks)
@@ -651,7 +660,7 @@ def bin_encode_batch_native(blocks: np.ndarray, lengths: np.ndarray,
                             use_apm: bool = False, apm_rate: int = 5,
                             nthreads: int = 0):
     """Threaded byte-level bin/apm encode (MSB-first bits; bit-exact vs
-    codecs.bin_apm / the Pallas bin coder).  Returns (comp, clens)."""
+    codecs.bin_apm).  Returns (comp, clens)."""
     lib = get_lib()
     blocks = _contig(blocks, np.uint8)
     b, cap = blocks.shape
@@ -672,7 +681,8 @@ def bin_encode_indexed_batch(blocks: np.ndarray, lengths: np.ndarray,
                              use_apm: bool = False, apm_rate: int = 5,
                              nthreads: int = 0):
     """bin_encode_batch + the per-256-bit-chunk consumed-byte index the
-    Pallas lane decoder needs.  Returns (comp, clens, deltas (B, NC))."""
+    chunk-indexed lane decoder needs.  Returns (comp, clens, deltas
+    (B, NC))."""
     lib = get_lib()
     blocks = _contig(blocks, np.uint8)
     b, cap = blocks.shape
@@ -789,11 +799,12 @@ def bwt_inverse_batch(L: np.ndarray, lengths: np.ndarray,
 
 def ari_build_windows(streams: np.ndarray, deltas: np.ndarray, w: int,
                       nthreads: int = 0) -> np.ndarray:
-    """Build the range decoder's per-chunk windows at host memcpy speed.
-    streams: (B, cap) u8 rows (zero-padded), deltas: (B, NC) i32 per-chunk
-    consumed bytes.  Returns (B, NC*w) u32 big-endian-packed window words
-    (lane-major; the device transposes to the kernel's (NC*w, lanes)
-    layout).  Matches kernels.range_decoder.build_windows bit for bit."""
+    """Build the chunk-indexed lane decoder's per-chunk windows at host
+    memcpy speed.  streams: (B, cap) u8 rows (zero-padded), deltas:
+    (B, NC) i32 per-chunk consumed bytes.  Returns (B, NC*w) u32
+    big-endian-packed window words (lane-major; the device transposes to
+    the decoder's (NC*w, lanes) layout).  Matches
+    codecs.ari_index.build_windows bit for bit."""
     lib = get_lib()
     streams = _contig(streams, np.uint8)
     deltas = _contig(deltas, np.int32)
@@ -814,7 +825,7 @@ def deflate(data: bytes, max_chain: int = 64,
     """RFC 1951 encoder (greedy hash-chain LZ77 + package-merge dynamic
     Huffman, or fixed/stored block types); streams accepted by stock
     zlib.  Production host encode for the deflate container — the device
-    bulk stages are the TPU formulation."""
+    bulk stages are the XLA formulation."""
     return _run2("tpz_deflate", data, 2 * len(data) + 4096, max_chain,
                  DEFLATE_MODES[mode])
 
@@ -850,7 +861,7 @@ def deflate_fragment_batch(blocks: np.ndarray, lengths: np.ndarray,
 
 def inflate(data: bytes, out_cap: int) -> bytes:
     """RFC 1951 inflate at host speed (production decode for the deflate
-    container; the device symbol loop is the TPU formulation)."""
+    container; the device symbol loop is the XLA formulation)."""
     return _run2("tpz_inflate", data, out_cap)
 
 

@@ -1,7 +1,7 @@
 """Structured per-phase metrics and logging (SURVEY §5 observability).
 
-The reference has no logging at all; production TPU jobs need bytes in/out,
-ratio, GB/s per chip, blocks/s, and per-phase timings.
+The reference has no logging at all; production jobs need bytes in/out,
+ratio, GB/s per device, blocks/s, and per-phase timings.
 """
 
 from __future__ import annotations
