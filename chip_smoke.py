@@ -360,17 +360,18 @@ def main(argv=None) -> int:
             print(f"chip_smoke: --four-cards needs 4 GPUs, found "
                   f"{len(devices)}", file=sys.stderr)
             return 2
-        out = {"four_cards": phase_four_cards(devices[:4], corpus)}
+        used = devices[:4]
+        out = {"four_cards": phase_four_cards(used, corpus)}
     else:
-        out = {"ari": phase_ari(devices[:1], corpus),
-               "lz4": phase_lz4(devices[:1], corpus),
-               "kernel_vs_xla": phase_kernel_vs_xla(devices[:1], corpus,
-                                                    card)}
+        used = devices[:1]
+        out = {"ari": phase_ari(used, corpus),
+               "lz4": phase_lz4(used, corpus),
+               "kernel_vs_xla": phase_kernel_vs_xla(used, corpus, card)}
     log("results: " + json.dumps(out, default=float))
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
-        "platform": devices[0].platform, "kind": devices[0].device_kind,
-        "count": len(devices)}}), flush=True)
+        "platform": used[0].platform, "kind": used[0].device_kind,
+        "count": len(used)}}), flush=True)
     return 0
 
 

@@ -55,13 +55,15 @@ def test_current_platform_is_cpu_here():
 
 def test_using_switches_and_restores():
     before = dict(backend.TABLE["cpu"])
-    with backend.using(ari_encode="xla", mtf="xla"):
+    with backend.using(ari_encode="xla", bwt_forward="xla"):
         assert backend.impl("ari_encode") == "xla"
-        assert backend.impl("mtf") == "xla"
+        assert backend.impl("bwt_forward") == "xla"
     assert backend.TABLE["cpu"] == before
-    with pytest.raises(ValueError):
-        with backend.using(mtf="cuda"):
-            pass
+    # host-only stages and implementations a stage lacks cannot be chosen
+    for bad in ({"mtf": "xla"}, {"bwt_forward": "cuda"}):
+        with pytest.raises(ValueError):
+            with backend.using(**bad):
+                pass
     assert backend.TABLE["cpu"] == before
 
 
@@ -86,14 +88,13 @@ def test_runner_follows_the_table():
 
 @pytest.mark.parametrize("codec", ["bwt", "bwtdc"])
 def test_runner_xla_stages_match_host(codec):
-    """The XLA implementations of the BWT-family stages write the same
-    containers as the host ones."""
+    """The XLA BWT forward stage writes the same containers as the host
+    one."""
     from tpuzip.dist import runner
 
     data = (b"the quick brown fox jumps over the lazy dog " * 200)[:6000]
     want = runner.compress(data, codec=codec, block_size=2048)
-    with backend.using(bwt_forward="xla", mtf="xla", dc_encode="xla",
-                       dc_decode="xla"):
+    with backend.using(bwt_forward="xla"):
         got = runner.compress(data, codec=codec, block_size=2048)
         assert got == want
         assert runner.decompress(got) == data

@@ -55,7 +55,7 @@ def _bin_update(p0, bit, bits, rate):
 def encode_bits(bits_in: jnp.ndarray, length: jnp.ndarray,
                 model_bits: int = 12, rate: int = 5,
                 use_apm: bool = False, apm_rate: int = 5,
-                cap: int | None = None, with_counts: bool = False):
+                cap: int | None = None):
     """bits_in: (N,) u8 of 0/1. Bit-exact vs the oracle BinaryModel coder
     (and oracle ApmGate coder when use_apm)."""
     n = bits_in.shape[0]
@@ -109,10 +109,7 @@ def encode_bits(bits_in: jnp.ndarray, length: jnp.ndarray,
     chunks = jnp.concatenate([b4, tail[None]], axis=0)
     counts = e4.sum(axis=1).astype(jnp.int32)
     lens = jnp.concatenate([counts, jnp.array([4], jnp.int32)])
-    out, out_len = pack_bytes_varlen(chunks, lens, cap)
-    if with_counts:
-        return out, out_len, counts
-    return out, out_len
+    return pack_bytes_varlen(chunks, lens, cap)
 
 
 def decode_bits(comp: jnp.ndarray, num_bits: jnp.ndarray, out_n: int,

@@ -39,12 +39,12 @@ TABLE: dict[str, dict[str, str]] = {
     },
 }
 STAGES = tuple(TABLE["cpu"])
-# Implementations a stage can be switched to with `using` (measurements
-# compare them; the table above holds the measured choice).
+# The stages with more than one implementation, and what `using` may
+# switch them to (measurements compare them; the table holds the measured
+# choice).  mtf, dc_* and bin_encode are served by the host on every
+# platform.
 CHOICES = {"ari_encode": (HOST, CUDA, XLA), "ari_decode": (HOST, CUDA, XLA),
-           "bwt_forward": (HOST, XLA), "mtf": (HOST, XLA),
-           "dc_encode": (HOST, XLA), "dc_decode": (HOST, XLA),
-           "bin_encode": (HOST, XLA)}
+           "bwt_forward": (HOST, XLA)}
 
 
 class UnsupportedPlatformError(RuntimeError):
@@ -74,10 +74,11 @@ def impl(stage: str, platform_name: str | None = None) -> str:
 def using(**stages: str):
     """Serve the given stages of the current platform by other
     implementations inside the block, e.g. ``using(ari_encode="xla")``
-    to time compress() with the plain XLA coder."""
+    to time compress() with the plain XLA coder.  The switch is
+    process-wide, so every thread sees it while the block runs."""
     row = TABLE[platform()]
     for stage, choice in stages.items():
-        if choice not in CHOICES[stage]:
+        if choice not in CHOICES.get(stage, ()):
             raise ValueError(f"{stage} has no {choice!r} implementation")
     saved = dict(row)
     row.update(stages)
